@@ -21,24 +21,25 @@ WIDTHS = (64, 128, 256, 512, 512)
 
 
 class VGG16(nn.Module):
-    def __init__(self, use_bn: bool = True):
+    def __init__(self, *, bn_momentum: float, use_bn: bool = True):
         super().__init__()
         convs = []
         cin = 3  # RGB
         for n_convs, width in zip(STAGES, WIDTHS):
             for _ in range(n_convs):
-                convs.append(ConvBNAct(cin, width, use_bn=use_bn))
+                convs.append(ConvBNAct(cin, width, bn_momentum=bn_momentum,
+                                       use_bn=use_bn))
                 cin = width
         self.convs = nn.ModuleList(convs)  # flax ConvBNAct_0..12 order
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype
-                ) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False) -> List[torch.Tensor]:
         feats = []
         it = iter(self.convs)
         for stage, n_convs in enumerate(STAGES):
             if stage > 0:
                 x = max_pool(x)
             for _ in range(n_convs):
-                x = next(it)(x, dtype)
+                x = next(it)(x, dtype, train)
             feats.append(x)
         return feats

@@ -69,10 +69,13 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm state (flax ``BatchNorm`` names)."""
+    """flax ``BatchNorm`` state (``scale``/``bias`` parameters,
+    ``mean``/``var`` running statistics) and its train-mode forward;
+    ``momentum`` is flax's (``ModelConfig.bn_momentum``)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float):
         super().__init__()
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -85,33 +88,65 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.var + BN_EPS) * self.scale
         return self.mean.float(), mul.float(), self.bias.float()
 
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalise NHWC ``x`` with its batch statistics and move the
+        running ones, as flax ``BatchNorm(use_running_average=False)``
+        does (normalization.py ``_compute_stats`` / ``_normalize``):
+        statistics in f32 with the fast biased variance
+        ``max(0, E[x^2] - E[x]^2)``, ``ra = m * ra + (1 - m) * batch``
+        storing that biased variance, and the result cast back to
+        ``x``'s dtype.  ``nn.BatchNorm2d`` keeps the unbiased variance
+        instead, so it is not used."""
+        x32 = x.float()
+        axes = tuple(range(x.ndim - 1))
+        mean = x32.mean(axes)
+        var = torch.clamp_min((x32 * x32).mean(axes) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        return ((x32 - mean) * mul + self.bias).to(x.dtype)
+
 
 def _as_parts(x: Maps) -> List[torch.Tensor]:
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
 class ConvBNAct(nn.Module):
-    """3x3 conv -> (inference BatchNorm) -> (ReLU), NHWC, as ONE launch of
-    the fused conv kernel.  A list/tuple input is convolved as its
-    channel concat without building it (the decoder-head idiom)."""
+    """3x3 conv -> BatchNorm (or the conv bias) -> ReLU, NHWC.  A
+    list/tuple input is convolved as its channel concat without building
+    it (the decoder-head idiom).
 
-    def __init__(self, in_features: int, features: int,
-                 use_bn: bool = True, act: bool = True):
+    Inference is ONE launch of the fused conv kernel (BN folded into its
+    epilogue).  Training needs whole-batch statistics, so, as the JAX
+    package's fused arm does (models/layers.py:224-255), the kernel runs
+    the conv alone (mode ``none``) and the train-mode BatchNorm and the
+    ReLU follow it as tensor code."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 bn_momentum: float, use_bn: bool = True, act: bool = True):
         super().__init__()
         self.act = act
         self.conv = Conv(in_features, features, use_bias=not use_bn)
-        self.bn = BatchNorm(features) if use_bn else None
+        self.bn = BatchNorm(features, bn_momentum) if use_bn else None
 
-    def forward(self, x: Maps, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: Maps, dtype: torch.dtype,
+                train: bool = False) -> torch.Tensor:
         parts = [p.to(dtype) for p in _as_parts(x)]
+        w = self.conv.kernel.to(dtype)
+        kernel = self.conv.kernel_size
+        if self.bn is not None and train:
+            y = self.bn.train_forward(
+                fc.fused_conv(parts, w, kernel=kernel, mode="none"))
+            return torch.relu(y) if self.act else y
         if self.bn is not None:
             mean, mul, beta = self.bn.fold()
             vecs, mode = {"mean": mean, "mul": mul, "bias": beta}, "bn"
         else:
             vecs = {"bias": self.conv.bias.to(dtype).float()}
             mode = "bias"
-        return fc.fused_conv(parts, self.conv.kernel.to(dtype), vecs,
-                             kernel=self.conv.kernel_size, mode=mode,
+        return fc.fused_conv(parts, w, vecs, kernel=kernel, mode=mode,
                              relu=self.act)
 
 

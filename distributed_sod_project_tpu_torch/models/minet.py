@@ -34,67 +34,74 @@ class AIM(nn.Module):
     neighbours by one conv over their channel concat."""
 
     def __init__(self, width: int, c_cur: int, c_below: Optional[int],
-                 c_above: Optional[int]):
+                 c_above: Optional[int], bn_momentum: float):
         super().__init__()
         ins = [c for c in (c_cur, c_below, c_above) if c is not None]
         self.cbas = nn.ModuleList(
-            [ConvBNAct(c, width) for c in ins]
-            + [ConvBNAct(width * len(ins), width)])
+            [ConvBNAct(c, width, bn_momentum=bn_momentum) for c in ins]
+            + [ConvBNAct(width * len(ins), width, bn_momentum=bn_momentum)])
         self.has_below = c_below is not None
         self.has_above = c_above is not None
 
-    def forward(self, below, cur, above, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, below, cur, above, dtype: torch.dtype,
+                train: bool = False) -> torch.Tensor:
         it = iter(self.cbas)
-        parts = [next(it)(cur, dtype)]
+        parts = [next(it)(cur, dtype, train)]
         if self.has_below:  # finer level -> downsample to cur's size
-            parts.append(resize_to(next(it)(below, dtype), cur.shape[1:3]))
+            parts.append(resize_to(next(it)(below, dtype, train),
+                                   cur.shape[1:3]))
         if self.has_above:  # coarser level -> upsample to cur's size
-            parts.append(upsample_like(next(it)(above, dtype), cur))
-        return next(it)(parts, dtype)
+            parts.append(upsample_like(next(it)(above, dtype, train), cur))
+        return next(it)(parts, dtype, train)
 
 
 class SIM(nn.Module):
     """Self-interaction: high-res / low-res branch exchange."""
 
-    def __init__(self, width: int, cin: int):
+    def __init__(self, width: int, cin: int, bn_momentum: float):
         super().__init__()
         w, w2 = width, width // 2
         self.cbas = nn.ModuleList([
-            ConvBNAct(cin, w),      # 0: h
-            ConvBNAct(cin, w2),     # 1: l (before the pool)
-            ConvBNAct(w, w),        # 2: h2 (outer)
-            ConvBNAct(w2, w),       # 3: l -> h exchange (inner)
-            ConvBNAct(w2, w2),      # 4: l2 (outer)
-            ConvBNAct(w, w2),       # 5: h -> l exchange (inner)
-            ConvBNAct(w + w2, w),   # 6: merge
-        ])
+            ConvBNAct(i, o, bn_momentum=bn_momentum) for i, o in (
+                (cin, w),      # 0: h
+                (cin, w2),     # 1: l (before the pool)
+                (w, w),        # 2: h2 (outer)
+                (w2, w),       # 3: l -> h exchange (inner)
+                (w2, w2),      # 4: l2 (outer)
+                (w, w2),       # 5: h -> l exchange (inner)
+                (w + w2, w),   # 6: merge
+            )])
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        c = self.cbas
-        h = c[0](x, dtype)
-        low = max_pool(c[1](x, dtype))
-        h2 = c[2](resample_merge(c[3](low, dtype), h, mode="add"), dtype)
-        l2 = c[4](low + max_pool(c[5](h, dtype)), dtype)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False) -> torch.Tensor:
+        c, t = self.cbas, train
+        h = c[0](x, dtype, t)
+        low = max_pool(c[1](x, dtype, t))
+        h2 = c[2](resample_merge(c[3](low, dtype, t), h, mode="add"), dtype, t)
+        l2 = c[4](low + max_pool(c[5](h, dtype, t)), dtype, t)
         merged = resample_merge(l2, h2, mode="concat", x_first=False)
-        return c[6](merged, dtype)
+        return c[6](merged, dtype, t)
 
 
 class MINet(nn.Module):
     """MINet-VGG16.  ``dtype`` is the compute dtype (the JAX package's
     ``model.compute_dtype``); parameters keep whatever dtype they hold
-    and are cast to it at use, as flax's ``promote_dtype`` does."""
+    and are cast to it at use, as flax's ``promote_dtype`` does.
+    ``bn_momentum`` is every BatchNorm's (``ModelConfig.bn_momentum``)."""
 
-    def __init__(self, backbone_bn: bool = True, width: int = 64,
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, *, bn_momentum: float, backbone_bn: bool = True,
+                 width: int = 64, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.backbone = VGG16(use_bn=backbone_bn)
+        self.backbone = VGG16(bn_momentum=bn_momentum, use_bn=backbone_bn)
         n = len(WIDTHS)
         self.aims = nn.ModuleList([
             AIM(width, WIDTHS[i], WIDTHS[i - 1] if i > 0 else None,
-                WIDTHS[i + 1] if i < n - 1 else None) for i in range(n)])
-        self.sims = nn.ModuleList([SIM(width, width) for _ in range(n)])
-        self.head_cba = ConvBNAct(width, 32)
+                WIDTHS[i + 1] if i < n - 1 else None, bn_momentum)
+            for i in range(n)])
+        self.sims = nn.ModuleList([SIM(width, width, bn_momentum)
+                                   for _ in range(n)])
+        self.head_cba = ConvBNAct(width, 32, bn_momentum=bn_momentum)
         self.head_conv = Conv(32, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -105,19 +112,22 @@ class MINet(nn.Module):
             if isinstance(m, Conv):
                 m.reset_parameters(generator)
 
-    def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, image: torch.Tensor, train: bool = False
+                ) -> List[torch.Tensor]:
         """``image`` ``[B,H,W,3]`` (normalised) -> ``[logit]`` with the
-        logit ``[B,H,W,1]`` float32 at the input resolution."""
-        cd = self.dtype
-        feats = self.backbone(image.to(cd), cd)
+        logit ``[B,H,W,1]`` float32 at the input resolution.  ``train``
+        normalises with batch statistics and moves the running ones (the
+        JAX package's ``train=True``)."""
+        cd, t = self.dtype, train
+        feats = self.backbone(image.to(cd), cd, t)
         agg = []
         for i, f in enumerate(feats):
             below = feats[i - 1] if i > 0 else None
             above = feats[i + 1] if i < len(feats) - 1 else None
-            agg.append(self.aims[i](below, f, above, cd))
-        d = self.sims[0](agg[-1], cd)
+            agg.append(self.aims[i](below, f, above, cd, t))
+        d = self.sims[0](agg[-1], cd, t)
         for n, i in enumerate(range(len(agg) - 2, -1, -1)):
             d = resample_merge(d, agg[i], mode="add")
-            d = self.sims[n + 1](d, cd)
-        logit = self.head_conv(self.head_cba(d, cd), cd)
+            d = self.sims[n + 1](d, cd, t)
+        logit = self.head_conv(self.head_cba(d, cd, t), cd)
         return [resize_to(logit, tuple(image.shape[1:3])).float()]

@@ -44,7 +44,8 @@ def build_model(model_cfg, generator: Optional[torch.Generator] = None
             f"(vgg16 is); see {_ROADMAP}")
     from .minet import MINet
 
-    model = MINet(backbone_bn=model_cfg.backbone_bn,
+    model = MINet(bn_momentum=model_cfg.bn_momentum,
+                  backbone_bn=model_cfg.backbone_bn,
                   dtype=_torch_dtype(model_cfg.compute_dtype))
     model.reset_parameters(generator or torch.Generator().manual_seed(0))
     return model.to(_torch_dtype(model_cfg.param_dtype)).eval()

@@ -185,7 +185,9 @@ def test_kernel_build_needs_nvcc_and_never_runs_at_import(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     srcs = _build._sources()
-    assert {p.stem for p in srcs} == {"fused_conv", "fused_resample"}
+    assert {p.stem for p in srcs} == {
+        "fused_conv", "fused_conv_dw", "fused_resample", "fused_resample_upT",
+        "fused_loss", "fused_ssim"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # The build directory is keyed by the sources and lives under the
     # ignored build root.
